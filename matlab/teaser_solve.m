@@ -5,7 +5,7 @@ function [s, R, t, time_taken] = teaser_solve(src, dst, varargin)
 %   (/root/reference/matlab/teaser_solve.m + teaser_mex.cc): same name,
 %   signature, parameter names, defaults and outputs — but instead of a
 %   compiled MEX it shells into the framework's Python CLI
-%   (python -m psulvsb_tpu.cli), which runs the TPU-native solver. No
+%   (python -m psulvsb_tpu.cli), which runs the solver. No
 %   MATLAB toolchain or MEX build is required; `python` with the repo on
 %   PYTHONPATH must be on the system path (override the interpreter with
 %   the environment variable PSULVSB_PYTHON).

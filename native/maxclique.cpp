@@ -5,7 +5,7 @@
 // lower bound, exact branch-and-bound with coloring bounds; Rossi et al.,
 // "Parallel Maximum Clique Algorithms with Applications to Network
 // Analysis", SIAM J. Sci. Comput. 2015). Branch-and-bound search does not
-// map to the TPU's execution model, so — like the reference — the exact
+// map to dense device kernels, so — like the reference — the exact
 // stage runs on the host, here as a fresh implementation:
 //
 //   1. k-core decomposition (peeling) for an upper bound + vertex order,

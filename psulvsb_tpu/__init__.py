@@ -1,10 +1,10 @@
-"""psulvsb_tpu — TPU-native Probabilistic Self-Update Line-Vector-Set-Based
-Point Cloud Registration.
+"""psulvsb_tpu — Probabilistic Self-Update Line-Vector-Set-Based Point Cloud
+Registration on the GPU.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference C++/Eigen implementation (ivpml84079/Probabilistic-Self-Update-
 Line-Vector-Set-Based-Point-Cloud-Registration, itself a fork of MIT-SPARK
-TEASER++), re-designed TPU-first:
+TEASER++), re-designed for batched accelerator execution:
 
 - static shapes + active masks everywhere (no dynamic Eigen resizes),
 - batched hypothesis evaluation via vmap (replaces the serial RANSAC

@@ -44,16 +44,14 @@ def _solver_dtype(src: np.ndarray, dst: np.ndarray):
     """Dtype the solve runs in: f64 inputs keep f64 when the runtime
     supports it (jax_enable_x64 — the reference pipeline is f64 Eigen
     end-to-end), otherwise downcast to f32 with a warning rather than
-    silently (VERDICT r2: an f64 caller must not get f32 results
-    unannounced). Everything else runs f32 (the TPU-native default)."""
+    silently (an f64 caller must not get f32 results unannounced). Everything else runs f32 (the accelerator default)."""
     if np.result_type(src.dtype, dst.dtype) == np.float64:
         if jax.config.read("jax_enable_x64"):
             return jnp.float64
         warnings.warn(
             "float64 input downcast to float32: enable x64 "
             "(jax.enable_x64(True) or JAX_ENABLE_X64=1) to solve in "
-            "f64 like the reference's Eigen pipeline; TPU backends have no "
-            "f64 ALUs and always run f32.",
+            "f64 like the reference's Eigen pipeline.",
             stacklevel=3,
         )
     return jnp.float32

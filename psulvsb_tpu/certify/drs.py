@@ -1,4 +1,4 @@
-"""Douglas-Rachford-splitting rotation certifier — dense TPU form.
+"""Douglas-Rachford-splitting rotation certifier — dense batched form.
 
 Equivalent of teaser::DRSCertifier
 (/root/reference/teaser/src/certification.cc:22-671 and certification.h:53-238).
@@ -12,7 +12,7 @@ searching for a dual certificate with DRS iterations:
   gap     = -lambda_min(M_aff) (N+1) / mu
   M      += gamma_tau (M_aff - M_PSD)
 
-TPU re-design notes:
+Re-design notes:
 
 - Everything is dense: the (4N+4)^2 matrices live as (N+1, N+1, 4, 4) block
   tensors for the structure projection (batched 4x4 ops) and as flat
@@ -336,9 +336,10 @@ def certify_rotation(
     Defaults mirror DRSCertifier::Params (certification.h:74-101).
 
     The whole trace pins HIGHEST matmul precision: the gap divides eigen
-    residuals by mu ~ noise^2, so TPU-default bf16 einsum/kron passes
-    inflate the reported suboptimality by orders of magnitude (measured:
-    a certified-optimal case reads gap ~5e2 in bf16, 0.0 in f32-HIGHEST).
+    residuals by mu ~ noise^2, so reduced-precision (bf16/TF32) einsum/kron
+    passes inflate the reported suboptimality by orders of magnitude
+    (measured on the CPU backend: a certified-optimal case reads gap ~5e2
+    in bf16, 0.0 in f32-HIGHEST).
     """
     with jax.default_matmul_precision("highest"):
         return _certify_rotation_body(
@@ -450,19 +451,18 @@ class DRSCertifier:
         f64 like the reference's Eigen path. This is a verification step,
         not the solve hot path — latency is non-critical.
 
-        device: "cpu" pins the f64 path to the host CPU (TPUs have no f64
-        ALUs — like the reference's Eigen certifier running on the CPU next
-        to any GPU solver); "device" runs certify_rotation in f32 on the
-        session's default backend (TPU under jit — all-dense eigh +
-        projections, SURVEY.md §7.8); "auto" prefers f64-CPU when a host CPU
-        exists, else the on-device f32 path.
+        device: "cpu" pins the f64 path to the host CPU (like the
+        reference's Eigen certifier running on the CPU next to any GPU
+        solver); "device" runs certify_rotation in f32 on the session's
+        default backend (under jit — all-dense eigh + projections,
+        SURVEY.md §7.8); "auto" prefers f64-CPU when a host CPU exists,
+        else the on-device f32 path.
 
         f32 accuracy (measured on the reference's certification_{small,large}
         MATLAB fixture cases, tests/test_certify.py::TestDeviceF32Parity):
         `is_optimal` agrees with f64 on every shipped case, and
-        `best_suboptimality` agrees within 2e-2 absolute (CPU-f32) /
-        5e-4 (real TPU f32, 2026-08-17: gaps {0, 0, 1.2e-5, 3.5e-6,
-        8.0e-3} vs f64 {0, 8e-13, 1.5e-13, 0, 7.6e-3}). The f32 eigensolve
+        `best_suboptimality` agrees within 2e-2 absolute on the CPU backend
+        (the H100 is not measured yet). The f32 eigensolve
         floors the observable gap near ~1e-5-1e-2 depending on mu ~ noise^2;
         sub_optimality thresholds below that floor — and exactly-noiseless
         inputs, where mu -> 0 amplifies eigh error unboundedly — are only
@@ -512,7 +512,7 @@ class DRSCertifier:
                 theta_np = np.where(theta_np, 1.0, -1.0)
             if polish:
                 # Opt-in: certify the f64-polished local optimum instead of
-                # the raw estimate. The main solver runs in f32 on TPU; an
+                # the raw estimate. The main solver runs in f32; an
                 # f32 rotation carries ~1e-7 orientation error, which the gap
                 # formula amplifies by 1/mu past the 1e-3 certificate
                 # threshold. One f64 weighted Procrustes step on the

@@ -1,9 +1,9 @@
-"""Inlier selection via graph cores/cliques — device-side TPU forms.
+"""Inlier selection via graph cores/cliques — device-side forms.
 
 Equivalent of teaser::MaxCliqueSolver::findMaxClique
 (/root/reference/teaser/src/graph.cc:12-125), which wraps the PMC library:
-k-core bounds -> heuristic clique -> optional exact branch-and-bound. On TPU
-the adjacency lives as a dense (N, N) bool/float matrix and:
+k-core bounds -> heuristic clique -> optional exact branch-and-bound. On
+the device the adjacency lives as a dense (N, N) bool/float matrix and:
 
 - core numbers   = iterative peeling fixpoint (matrix-vector degree products),
 - KCORE_HEU mode = vertices whose core number equals the max core
@@ -13,7 +13,7 @@ the adjacency lives as a dense (N, N) bool/float matrix and:
   max-degree-first selection),
 - PMC_EXACT      = exact branch-and-bound in native C++ via
   `psulvsb_tpu.clique.pmc` (host callback; branch-and-bound does not map to
-  the MXU/VPU). Falls back to the greedy heuristic when the native library
+  dense device kernels). Falls back to the greedy heuristic when the native library
   is unavailable.
 
 All functions take/return fixed-size masks so they compose with jit.
@@ -82,7 +82,7 @@ def max_kcore_mask(adj: jax.Array, active: jax.Array | None = None) -> jax.Array
 
 
 def triangle_scores(adj: jax.Array, active: jax.Array | None = None) -> jax.Array:
-    """Per-vertex triangle count diag(A^3) — the MXU-native greedy ordering
+    """Per-vertex triangle count diag(A^3) — the matmul-native greedy ordering
     for DENSE noisy consistency graphs.
 
     Core numbers (PMC's kcore ordering) break on the scale-estimation
@@ -93,7 +93,7 @@ def triangle_scores(adj: jax.Array, active: jax.Array | None = None) -> jax.Arra
     with clique size while a p-dense noise vertex gets ~d^2 p/2, so
     triangle ordering separates where degree/core cannot: with it greedy
     matched exact on every audited collapse case. Two (N, N) matmuls —
-    MXU work, no host callback."""
+    matrix-unit work, no host callback."""
     n = adj.shape[0]
     if active is not None:
         adj = adj & active[None, :] & active[:, None]

@@ -22,17 +22,28 @@ _lock = threading.Lock()
 _lib = None
 
 
+def _build() -> None:
+    """Build the library from native/maxclique.cpp unless it exists. The
+    file lock serialises processes that reach the first use together (test
+    workers on a fresh checkout); the Makefile renames the finished file
+    into place, so no process ever loads a partial one."""
+    import fcntl
+
+    native_dir = os.path.abspath(_NATIVE_DIR)
+    with open(os.path.join(native_dir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(_LIB_PATH):
+            subprocess.run(
+                ["make", "-C", native_dir], check=True, capture_output=True
+            )
+
+
 def _load():
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB_PATH):
-            subprocess.run(
-                ["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                check=True,
-                capture_output=True,
-            )
+        _build()
         lib = ctypes.CDLL(_LIB_PATH)
         lib.max_clique.restype = ctypes.c_int
         lib.max_clique.argtypes = [

@@ -1,9 +1,8 @@
-"""Core linear algebra for TPU-native registration.
+"""Core linear algebra for batched registration.
 
 Point-set convention: ``(3, N)`` matrices ("points as columns"), matching the
-reference API and — more importantly — the TPU tiling model: XLA pads the
-trailing two dims to (8, 128) tiles, so a (3, N) array wastes ~2.6x while an
-(N, 3) array would waste ~42x in lane padding for vector ops over N points.
+reference API, and keeping N on the trailing (contiguous) axis so vector
+ops over N points run over dense rows.
 
 Functional equivalents of (all references into /root/reference/):
 - ``teaser::utils::svdRot``            teaser/include/teaser/utils.h:121-136
@@ -12,7 +11,7 @@ Functional equivalents of (all references into /root/reference/):
 - ``teaser::getNearestPSD``            teaser/include/teaser/linalg.h:84-99
 
 The rotation-from-correlation solve additionally offers a branch-free
-quaternion (Davenport/Horn) path that is friendlier to batched TPU execution
+quaternion (Davenport/Horn) path that is friendlier to batched execution
 than a general SVD: building the symmetric 4x4 Davenport matrix and taking its
 leading eigenvector yields exactly the Kabsch/Umeyama proper rotation
 (including the reflection fix) without any data-dependent sign branch.
@@ -102,7 +101,7 @@ def rot_from_correlation(h: jax.Array, method: str = "eigh") -> jax.Array:
     Davenport matrix.
 
     method:
-      "eigh"  — jnp.linalg.eigh on the 4x4 (accurate; batched fine on TPU).
+      "eigh"  — jnp.linalg.eigh on the 4x4 (accurate; batches fine).
       "power" — shifted power iteration, pure matmuls (fastest inside big
                 vmapped GNC loops; ~30 iterations).
     """

@@ -6,14 +6,13 @@ downsample -> ISS keypoints -> FPFH -> nearest-neighbor matching,
 /root/reference/TEASER-plusplus/examples/teaser_cpp_ply/
 teaser_cpp_ply.cc:179-329). The five generated protocols in bench.py feed
 the solver synthetic mismatch outliers instead — uniform permutations whose
-wrong matches never collude. This module closes that gap (VERDICT r4
-missing #3): every correspondence the solver sees here was produced by the
+wrong matches never collude. This module closes that gap: every correspondence the solver sees here was produced by the
 real descriptor front-end on partially-overlapping structured scenes, so
 wrong matches carry the spatial clustering and repeated-geometry structure
 real FPFH produces, and non-overlap keypoints contribute genuinely
 unmatched outliers.
 
-TPU-native shape discipline: the per-pair front-end runs at ONE padded
+Static-shape discipline: the per-pair front-end runs at ONE padded
 cloud bucket (FRONT_BUCKET) with active masks through every kernel
 (normals/ISS/FPFH/kNN all take `active`), so the whole >=100-pair
 generation reuses a single compiled program per stage instead of paying a

@@ -152,8 +152,8 @@ def make_synthetic_pair(
         — exactly what matching two identical chairs produces (src points on
         chair 1 match dst points on chair 2; the chair1->chair2 motion T_g
         is rigid). Uniform permutation ("mismatch") can never produce such
-        consistency structures, so it under-tests the consensus machinery
-        (VERDICT r4 weak #2); clustered groups vote together in the ratio
+        consistency structures, so it under-tests the consensus machinery;
+        clustered groups vote together in the ratio
         histogram and form rival near-cliques in the consistency graph.
         Group size caps at 60% of the inlier count so the GT consensus
         remains the unique largest one (a decoy out-voting GT would make the

@@ -2,9 +2,9 @@
 
 Equivalent of teaser::FPFHEstimation (fpfh.cc:15-43, a PCL wrapper:
 kd-tree radius search -> SPFH pair-feature histograms -> distance-weighted
-neighbor pooling). TPU form:
+neighbor pooling). Batched form:
 
-- neighborhoods: brute-force kNN (MXU) with a radius mask (PCL uses pure
+- neighborhoods: brute-force kNN (matmul) with a radius mask (PCL uses pure
   radius search; a K-cap with radius masking keeps shapes static),
 - Darboux pair features (f1 = atan2(w.n_t, n_s.n_t), f2 = v.n_t,
   f3 = n_s.d/|d|) computed for all (point, neighbor) lanes at once,
@@ -23,6 +23,8 @@ import jax
 import jax.numpy as jnp
 
 from psulvsb_tpu.frontend.knn import knn
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def pair_features(
@@ -104,13 +106,13 @@ def compute_fpfh(
 
     def hist(bins):
         onehot = jax.nn.one_hot(bins, 11, dtype=points.dtype)  # (N, K, 11)
-        return jnp.einsum("nk,nkb->nb", incr, onehot)
+        return jnp.einsum("nk,nkb->nb", incr, onehot, precision=_HIGHEST)
 
     spfh = jnp.concatenate([hist(b1), hist(b2), hist(b3)], axis=1)  # (N, 33)
 
     # Distance-weighted neighbor pooling.
     w = jnp.where(ok, 1.0 / jnp.maximum(sqd, 1e-12), 0.0)  # (N, K)
-    neighbor_sum = jnp.einsum("nk,nkf->nf", w, spfh[idx])
+    neighbor_sum = jnp.einsum("nk,nkf->nf", w, spfh[idx], precision=_HIGHEST)
     fpfh = spfh + neighbor_sum / n_nb[:, None]
 
     # Renormalize each 11-bin block to sum 100 (PCL convention).

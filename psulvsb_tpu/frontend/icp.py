@@ -2,8 +2,9 @@
 
 Equivalent of the Open3D ICP stage in the FPFH+ICP example pipeline
 (/root/reference/examples/teaser_python_fpfh_icp/example.py: TEASER result
-refined by o3d registration_icp point-to-point). TPU form: fixed-iteration
-`lax.while_loop`, nearest neighbors via the brute-force MXU kNN, Kabsch
+refined by o3d registration_icp point-to-point). Batched form:
+fixed-iteration `lax.while_loop`, nearest neighbors via the brute-force
+matmul kNN, Kabsch
 update, convergence on transform delta.
 """
 

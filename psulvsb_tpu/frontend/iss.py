@@ -3,7 +3,7 @@
 Equivalent of the PCL ISSKeypoint3D stage in the correspondence generator
 (/root/reference/TEASER-plusplus/examples/teaser_cpp_ply/teaser_cpp_ply.cc:
 113-139: salient radius 6r, non-max radius 4r, gamma_21 = gamma_32 = 0.975,
-min_neighbors = 5). TPU form: kNN neighborhoods with radius masks, batched
+min_neighbors = 5). Batched form: kNN neighborhoods with radius masks, batched
 3x3 eigendecompositions, neighborhood-max suppression on the smallest
 eigenvalue.
 """
@@ -16,6 +16,8 @@ import jax
 import jax.numpy as jnp
 
 from psulvsb_tpu.frontend.knn import knn
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
@@ -44,9 +46,9 @@ def iss_keypoints(
     neigh = points.T[idx]  # (N, K, 3)
     w = in_salient.astype(dtype)
     cnt = jnp.maximum(jnp.sum(w, axis=1), 1.0)
-    mean = jnp.einsum("nk,nkd->nd", w, neigh) / cnt[:, None]
+    mean = jnp.einsum("nk,nkd->nd", w, neigh, precision=_HIGHEST) / cnt[:, None]
     cen = (neigh - mean[:, None, :]) * w[:, :, None]
-    cov = jnp.einsum("nkd,nke->nde", cen, cen) / cnt[:, None, None]
+    cov = jnp.einsum("nkd,nke->nde", cen, cen, precision=_HIGHEST) / cnt[:, None, None]
     evals = jnp.linalg.eigvalsh(cov)  # ascending: l3, l2, l1
     l3, l2, l1 = evals[:, 0], evals[:, 1], evals[:, 2]
 

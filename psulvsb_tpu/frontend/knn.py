@@ -1,8 +1,8 @@
 """Brute-force blocked k-nearest-neighbors.
 
 The reference leans on PCL/FLANN kd-trees (fpfh.cc:15-43, matcher.cc:305-335).
-Tree traversal is hostile to the TPU's execution model; a blocked dense
-distance computation feeds the MXU instead: for each query block,
+Tree traversal is hostile to batched accelerator execution; a blocked
+dense distance computation runs as matrix products instead: for each query block,
 ||q - p||^2 = ||q||^2 + ||p||^2 - 2 q.p — one (B, N) matmul + top_k.
 At 3-D/33-D feature width and N up to ~10^5 this is bandwidth-cheap and
 beats host kd-tree latency by orders of magnitude.

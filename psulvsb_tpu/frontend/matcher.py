@@ -1,4 +1,4 @@
-"""Feature correspondence matcher — dense MXU kNN over 33-D descriptors.
+"""Feature correspondence matcher — dense matmul kNN over 33-D descriptors.
 
 Equivalent of teaser::Matcher (matcher.cc:22-335): FLANN kd-trees over FPFH
 features, lazy mutual-NN initial matching, optional cross-check, optional

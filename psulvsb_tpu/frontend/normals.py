@@ -2,7 +2,7 @@
 
 Equivalent of the drivers' PCL normal estimation (compute_normal,
 /root/reference/examples/teaser_cpp_ply/PSULVSB.cc:35-85: kd-tree kSearch
-k=20, or radius search for KITTI). Here: brute-force kNN (MXU) and one
+k=20, or radius search for KITTI). Here: brute-force kNN (matmul) and one
 batched 3x3 eigh — the normal is the smallest-eigenvalue eigenvector of the
 neighborhood covariance, PCL's exact definition.
 

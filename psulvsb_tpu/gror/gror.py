@@ -1,4 +1,4 @@
-"""GROR — Graph Reliability Outlier Removal initial alignment, TPU-native.
+"""GROR — Graph Reliability Outlier Removal initial alignment, batched.
 
 Equivalent of the vendored GRORInitialAlignment
 (/root/reference/TEASER-plusplus/teaser/include/GROR/ia_gror.hpp:1-748,
@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from psulvsb_tpu.core.linalg import weighted_procrustes_srt
+from psulvsb_tpu.ops.pair_grid import consistency_degree
 from psulvsb_tpu.utils.precision import mm
 
 _TWOPI = 2.0 * np.pi
@@ -50,7 +51,7 @@ def _two_vectors_align(a: jax.Array, b: jax.Array) -> jax.Array:
     guarded against the antiparallel singularity (c -> -1) by falling back
     to a 180-degree flip about any orthogonal axis."""
     v = jnp.cross(a, b)
-    c = jnp.dot(a, b)
+    c = jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
     vx = jnp.array(
         [
             [0.0, -v[2], v[1]],
@@ -212,11 +213,8 @@ def _gror_core(
     thr = 2.0 * resolution
 
     # --- node reliability + top-K selection ---------------------------------
-    # Degrees via the tiled Pallas pair-grid kernel (ops/pallas_pairs.py):
-    # no (C, C) distance matrices in HBM; only the selected K x K submatrix
-    # is ever materialized.
-    from psulvsb_tpu.ops.pallas_pairs import consistency_degree
-
+    # Degrees over the full pair grid (ops/pair_grid.py: one fused
+    # elementwise pass and row sum, direct differences).
     degree = consistency_degree(src, dst, thr, active=corr_active)
 
     k = min(k_optimal, c)
@@ -322,7 +320,7 @@ class GRORInitialAlignment:
         self.k_optimal = int(k)
 
     def setNumberOfThreads(self, n: int):
-        pass  # parallelism is the vmap width on TPU
+        pass  # parallelism is the vmap width on the device
 
     def setInputCorrespondences(self, corr):
         self._corr = np.asarray(corr, np.int64)

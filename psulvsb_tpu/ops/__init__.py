@@ -1,1 +1,1 @@
-from psulvsb_tpu.ops.pallas_pairs import consistency_degree
+from psulvsb_tpu.ops.pair_grid import consistency_degree

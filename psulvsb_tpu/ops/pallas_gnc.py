@@ -1,29 +1,24 @@
-"""Pallas whole-GNC kernel: the full graduated-non-convexity reweighting
-loop, VMEM-resident, for a batch of hypotheses in one kernel launch.
+"""Whole-GNC Pallas kernel (Triton route): the full graduated-non-convexity
+reweighting loop for one hypothesis per program.
 
 The GNC-TLS rotation solver (rotation/gnc.py, equivalent of
-registration.cc:1563-1692) iterates up to 100 times; as XLA ops under a
-vmapped `lax.while_loop` every iteration costs a dozen small kernel
-launches, which dominates single-pair latency (~16 ms per local round
-measured at C=1889). Here the entire loop — weighted Procrustes via the
-Davenport quaternion (matrix-squaring power iteration), residuals, TLS
-weight update, convergence bookkeeping — runs inside ONE Pallas kernel with
-all state in VMEM.
+registration.cc:1563-1692) iterates up to 100 times. As XLA ops under a
+vmapped `lax.while_loop`, every iteration is a dozen small kernels plus a
+loop predicate read back by the host. Here the entire loop — weighted
+Procrustes via the Davenport quaternion (matrix-squaring power iteration),
+residuals, TLS weight update, convergence bookkeeping — runs inside one
+program with all state in registers.
 
-Mosaic constraints shaped the layout (probed on this toolchain):
-- hypotheses live on the LANE axis: data arrays are (N, B), per-hypothesis
-  scalars are (1, B); the only broadcast used is (1, B) -> (N, B)
-  (supported), never lane broadcasts or broadcasts into non-tile-aligned
-  (9, B)/(16, B) shapes (unsupported "Sublane broadcast");
-- every small per-hypothesis matrix (the 3x3 correlation, 4x4 Davenport,
-  rotation) is a PYTHON LIST of (1, B) rows — all small math is same-shape
-  (1, B) vector ops, no relayouts;
-- conditional updates are arithmetic blends with float {0, 1} flags
-  (select_n with narrow masks is unsupported).
+Layout: grid = (B,), one program per hypothesis. The TIM columns of a
+hypothesis are seven (Np,) rows (src xyz, dst xyz, active) with Np the
+next power of two >= N (Triton blocks are powers of two); padded columns
+are inactive and never vote. Per-hypothesis scalars (squared noise bound,
+warm flag, warm rotation) arrive as one (16,) row.
 
-Numerics match rotation/gnc.py (same update rules, warm start,
-degenerate-mu break, cost-uses-previous-weights convention); parity is
-tested in tests/test_pallas_ops.py. Interpret mode serves non-TPU backends.
+Numerics match rotation/gnc.py with rot_method="power" (same update rules,
+warm start, degenerate-mu break, cost-uses-previous-weights convention);
+parity is tested in tests/test_pallas_ops.py in interpret mode and on the
+card by eval/kernel_checks.check_gnc_kernel.
 """
 
 from __future__ import annotations
@@ -33,11 +28,19 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
+
+# Per-hypothesis scalar row: [nb_sq, use_warm, warm R (9, row-major), pad].
+_NPAR = 16
+
+
+def padded_width(n: int) -> int:
+    """Column count the kernel runs at: the next power of two >= max(n, 16)."""
+    return max(16, pl.next_power_of_2(n))
 
 
 def _mat4_mul(a: list, b: list) -> list:
-    """4x4 matmul on lists of 16 (1, B) row-major entries."""
+    """4x4 matmul on lists of 16 row-major scalars."""
     out = []
     for i in range(4):
         for j in range(4):
@@ -49,9 +52,8 @@ def _mat4_mul(a: list, b: list) -> list:
 
 
 def _davenport_from_h(h: list) -> list:
-    """h: list of 9 (1, B) row-major correlation entries. Returns the
-    Davenport K as a list of 16 (1, B) entries (core/linalg.
-    _davenport_matrix, rows/cols in (w, x, y, z) order)."""
+    """h: 9 row-major correlation entries -> the Davenport K as 16 entries
+    (core/linalg._davenport_matrix, rows/cols in (w, x, y, z) order)."""
     sxx, sxy, sxz, syx, syy, syz, szx, szy, szz = h
     return [
         sxx + syy + szz, syz - szy, szx - sxz, sxy - syx,
@@ -62,8 +64,7 @@ def _davenport_from_h(h: list) -> list:
 
 
 def _quat_to_r9(q: list) -> list:
-    """q: list of 4 (1, B) entries (w, x, y, z) -> list of 9 row-major
-    rotation entries."""
+    """(w, x, y, z) -> 9 row-major rotation entries."""
     w, x, y, z = q
     return [
         1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
@@ -73,7 +74,7 @@ def _quat_to_r9(q: list) -> list:
 
 
 def _rot_from_h9(h: list) -> list:
-    """Proper rotation from a 9-entry correlation list via shifted
+    """Proper rotation from 9 correlation scalars via shifted
     matrix-squaring power iteration on the Davenport matrix
     (core/linalg.rot_from_correlation method='power')."""
     k = _davenport_from_h(h)
@@ -89,11 +90,8 @@ def _rot_from_h9(h: list) -> list:
             nrm = nrm + e * e
         inv = 1.0 / (jnp.sqrt(nrm) + 1e-30)
         ks = [e * inv for e in ks]
-    # q = largest-norm column of the converged Ks (rank-1 lambda*v*v^T, so
-    # that column is a scaled dominant eigenvector v whatever its
-    # orientation; a fixed all-ones probe collapses for 180-degree
-    # rotations where v sums to ~0 — mirrors core/linalg.py 'power').
-    # Branchless column select: Mosaic has no gather here.
+    # q = largest-norm column of the converged (rank-1) Ks, first on ties
+    # (the argmax of core/linalg.py 'power').
     col_n = [
         ks[c] * ks[c] + ks[4 + c] * ks[4 + c]
         + ks[8 + c] * ks[8 + c] + ks[12 + c] * ks[12 + c]
@@ -102,130 +100,86 @@ def _rot_from_h9(h: list) -> list:
     best_n = col_n[0]
     q = [ks[0], ks[4], ks[8], ks[12]]
     for c in range(1, 4):
-        take = jnp.where(col_n[c] > best_n, 1.0, 0.0)
-        q = [take * ks[4 * i + c] + (1.0 - take) * q[i] for i in range(4)]
+        take = col_n[c] > best_n
+        q = [jnp.where(take, ks[4 * i + c], q[i]) for i in range(4)]
         best_n = jnp.maximum(col_n[c], best_n)
     qn = q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]
     inv = 1.0 / (jnp.sqrt(qn) + 1e-30)
-    q = [e * inv for e in q]
-    return _quat_to_r9(q)
+    return _quat_to_r9([e * inv for e in q])
 
 
-def _make_kernel(max_iterations: int, gnc_factor: float, cost_threshold: float):
-    def kernel(src_ref, dst_ref, act_ref, nbsq_ref, warm_ref, uw_ref,
-               rot_ref, w_ref):
-        s = [src_ref[0], src_ref[1], src_ref[2]]  # each (N, B)
-        d = [dst_ref[0], dst_ref[1], dst_ref[2]]
-        act = act_ref[:]  # (N, B) float {0, 1}
-        # nbsq arrives pre-broadcast to (N, B): per-hypothesis scalars are
-        # carried at full shape so every op in the loop is same-shape — the
-        # only narrow values are the reduction-born (1, B) rotation entries
-        # (mixing narrow input-ref/carry layouts trips Mosaic's
-        # unimplemented sublane-broadcast relayout).
-        nbsq = nbsq_ref[:]  # (N, B)
-        use_warm_f = jnp.where(uw_ref[0] != 0, 1.0, 0.0)  # scalar
-        # Warm rotation entries arrive as SMEM scalars (shared across the
-        # batch); scalar * vector ops are layout-neutral.
-        ones_1b = jnp.sum(act * 0.0, axis=0, keepdims=True) + 1.0  # (1, B)
-        warm = [warm_ref[i] * ones_1b for i in range(9)]  # 9 x (1, B)
-        full = act * 0.0  # (N, B) zeros for fresh broadcasts
+def _kernel(sx_ref, sy_ref, sz_ref, dx_ref, dy_ref, dz_ref, act_ref, par_ref,
+            rot_ref, w_ref, *, max_iterations, gnc_factor, cost_threshold):
+    s = (sx_ref[...], sy_ref[...], sz_ref[...])  # each (Np,)
+    d = (dx_ref[...], dy_ref[...], dz_ref[...])
+    act = act_ref[...]  # (Np,) float {0, 1}
+    live_col = act > 0.5
+    par = par_ref[...]
+    lane = jax.lax.broadcasted_iota(jnp.int32, (_NPAR,), 0)
 
-        big = jnp.float32(3.0e38)
+    def scalar(k):
+        return jnp.sum(jnp.where(lane == k, par, 0.0))
 
-        def residuals_sq(r):
-            out = None
-            for i in range(3):
-                e = d[i] - (r[3 * i] * s[0] + r[3 * i + 1] * s[1] + r[3 * i + 2] * s[2])
-                out = e * e if out is None else out + e * e
-            return out  # (N, B)
+    nbsq = scalar(0)
+    use_warm = scalar(1) > 0.5
+    warm = [scalar(2 + k) for k in range(9)]
 
-        def solve_rotation(w):
-            wa = w * act
-            h = [
-                jnp.sum(wa * s[a] * d[b], axis=0, keepdims=True)
-                for a in range(3)
-                for b in range(3)
-            ]  # 9 x (1, B), row-major S_ab
-            return _rot_from_h9(h)
+    def residuals_sq(r):
+        out = None
+        for i in range(3):
+            e = d[i] - (r[3 * i] * s[0] + r[3 * i + 1] * s[1] + r[3 * i + 2] * s[2])
+            out = e * e if out is None else out + e * e
+        return out
 
-        def body(state):
-            i, r9, w, mu, prev_cost, done_f = state
-            solved = solve_rotation(w)
-            first_f = jnp.where(i == 0, 1.0, 0.0)  # scalar
-            warm_f = first_f * use_warm_f
-            r_new = [warm_f * warm[k] + (1.0 - warm_f) * solved[k] for k in range(9)]
+    def body(state):
+        i, r9, w, mu, prev_cost, done = state
+        wa = w * act
+        h = [jnp.sum(wa * s[a] * d[b]) for a in range(3) for b in range(3)]
+        solved = _rot_from_h9(h)
+        take_warm = (i == 0) & use_warm
+        rot = [jnp.where(take_warm, warm[k], solved[k]) for k in range(9)]
 
-            r_sq = residuals_sq(r_new)
-            # mu init on iteration 0 (registration.cc:1628-1638). All
-            # per-hypothesis scalars live at (N, B) (rows replicated).
-            masked = r_sq * act - big * (1.0 - act)
-            max_res = (
-                jnp.broadcast_to(jnp.max(masked, axis=0, keepdims=True), act.shape)
-                + full
-            )  # (N, B)
-            mu_init = 1.0 / (2.0 * max_res / nbsq - 1.0)
-            mu_new = first_f * mu_init + (1.0 - first_f) * mu
-            degen_f = first_f * jnp.where(mu_new <= 0, 1.0, 0.0)  # (N, B)
+        r_sq = residuals_sq(rot)
+        # mu initialization on the first iteration (registration.cc:1628-1638).
+        max_res = jnp.max(jnp.where(live_col, r_sq, -jnp.inf))
+        mu_init = 1.0 / (2.0 * max_res / nbsq - 1.0)
+        mu_new = jnp.where(i == 0, mu_init, mu)
+        degenerate = (i == 0) & (mu_new <= 0.0)
 
-            th1 = (mu_new + 1.0) / mu_new * nbsq  # (N, B)
-            th2 = mu_new / (mu_new + 1.0) * nbsq
-            cost = (
-                jnp.broadcast_to(
-                    jnp.sum(w * r_sq * act, axis=0, keepdims=True), act.shape
-                )
-                + full
-            )  # (N, B)
-            w_mid = jnp.sqrt(
-                nbsq * mu_new * (mu_new + 1.0) / jnp.maximum(r_sq, 1e-30)
-            ) - mu_new
-            w_new = jnp.where(
-                r_sq >= th1,
-                0.0,
-                jnp.where(r_sq <= th2, 1.0, jnp.clip(w_mid, 0.0, 1.0)),
-            ) * act
-
-            conv_f = jnp.where(
-                jnp.abs(cost - prev_cost) < cost_threshold, 1.0, 0.0
-            )  # (N, B)
-            done_new = jnp.minimum(done_f + degen_f + conv_f, 1.0)
-
-            # Freeze state for hypotheses that were already done. The
-            # rotation rows are (1, B): blend them with a reduction-born
-            # (1, B) flag so the carry type stays narrow.
-            live = 1.0 - done_f
-            done_1b = jnp.max(done_f, axis=0, keepdims=True)
-            live_1b = 1.0 - done_1b
-            r_out = [done_1b * r9[k] + live_1b * r_new[k] for k in range(9)]
-            w_keep = jnp.minimum(done_f + degen_f, 1.0)
-            w_out = w_keep * w + (1.0 - w_keep) * w_new
-            mu_out = done_f * mu + live * (mu_new * gnc_factor)
-            pc_out = done_f * prev_cost + live * cost
-            return i + 1, r_out, w_out, mu_out, pc_out, done_new
-
-        def cond(state):
-            i, _, _, _, _, done_f = state
-            return jnp.logical_and(i < max_iterations, jnp.min(done_f) < 0.5)
-
-        n, b = act.shape
-        ident = [
-            (jnp.ones((1, b), jnp.float32) if i % 4 == 0
-             else jnp.zeros((1, b), jnp.float32))
-            for i in range(9)
-        ]
-        init = (
-            jnp.int32(0),
-            ident,
-            act,
-            jnp.ones((n, b), jnp.float32),
-            jnp.full((n, b), big, jnp.float32),
-            jnp.zeros((n, b), jnp.float32),
+        th1 = (mu_new + 1.0) / mu_new * nbsq
+        th2 = mu_new / (mu_new + 1.0) * nbsq
+        # Cost uses the PREVIOUS weights (registration.cc:1645-1648).
+        new_cost = jnp.sum(w * r_sq * act)
+        w_mid = jnp.sqrt(nbsq * mu_new * (mu_new + 1.0) / jnp.maximum(r_sq, 1e-30)) - mu_new
+        w_new = jnp.where(
+            r_sq >= th1, 0.0, jnp.where(r_sq <= th2, 1.0, jnp.clip(w_mid, 0.0, 1.0))
+        ) * act
+        converged = jnp.abs(new_cost - prev_cost) < cost_threshold
+        # The degenerate break exits before updating weights/cost.
+        return (
+            i + 1,
+            rot,
+            jnp.where(degenerate, w, w_new),
+            mu_new * gnc_factor,
+            jnp.where(degenerate, prev_cost, new_cost),
+            (degenerate | converged).astype(jnp.int32),
         )
-        _, r9, w, _, _, _ = jax.lax.while_loop(cond, body, init)
-        for k in range(9):
-            rot_ref[k : k + 1, :] = r9[k]
-        w_ref[:] = w
 
-    return kernel
+    def cond(state):
+        i, done = state[0], state[-1]
+        return (i < max_iterations) & (done == 0)
+
+    ident = [jnp.float32(1.0 if k % 4 == 0 else 0.0) for k in range(9)]
+    init = (
+        jnp.int32(0), ident, act, jnp.float32(1.0), jnp.float32(jnp.inf),
+        jnp.int32(0),
+    )
+    _, r9, w, _, _, _ = jax.lax.while_loop(cond, body, init)
+    rot = jnp.zeros((_NPAR,), jnp.float32)
+    for k in range(9):
+        rot = jnp.where(lane == k, r9[k], rot)
+    rot_ref[...] = rot
+    w_ref[...] = w
 
 
 @functools.partial(
@@ -233,48 +187,40 @@ def _make_kernel(max_iterations: int, gnc_factor: float, cost_threshold: float):
     static_argnames=("max_iterations", "gnc_factor", "cost_threshold", "interpret"),
 )
 def gnc_batch_pallas(
-    src: jax.Array,  # (3, N, B)
-    dst: jax.Array,  # (3, N, B)
-    act: jax.Array,  # (N, B) float {0,1}
-    nb_sq: jax.Array,  # (N, B), per-hypothesis value replicated over rows
-    warm_r9: jax.Array,  # (9,) — shared across the batch, passed via SMEM
-    use_warm: jax.Array,  # () bool
+    src: jax.Array,  # (B, 3, Np)
+    dst: jax.Array,  # (B, 3, Np)
+    act: jax.Array,  # (B, Np) float {0, 1}
+    par: jax.Array,  # (B, 16) per-hypothesis scalar row
     max_iterations: int = 100,
     gnc_factor: float = 1.4,
     cost_threshold: float = 0.005,
     interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
-    """Returns (rotations (9, B) row-major, weights (N, B))."""
-    n, b = act.shape
-    kernel = _make_kernel(max_iterations, gnc_factor, cost_threshold)
-    rot, w = pl.pallas_call(
+    """Returns (rotation rows (B, 16), first 9 row-major; weights (B, Np))."""
+    b, npad = act.shape
+    row = pl.BlockSpec((None, npad), lambda h: (h, 0))
+    kernel = functools.partial(
+        _kernel, max_iterations=max_iterations, gnc_factor=gnc_factor,
+        cost_threshold=cost_threshold,
+    )
+    return pl.pallas_call(
         kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((9, b), jnp.float32),
-            jax.ShapeDtypeStruct((n, b), jnp.float32),
-        ),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
+        grid=(b,),
+        in_specs=[row] * 7 + [pl.BlockSpec((None, _NPAR), lambda h: (h, 0))],
         out_specs=(
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, _NPAR), lambda h: (h, 0)),
+            row,
+        ),
+        out_shape=(
+            jax.ShapeDtypeStruct((b, _NPAR), jnp.float32),
+            jax.ShapeDtypeStruct((b, npad), jnp.float32),
+        ),
+        compiler_params=plt.CompilerParams(
+            num_warps=max(1, min(8, npad // 256)), num_stages=1
         ),
         interpret=interpret,
-    )(
-        src.astype(jnp.float32),
-        dst.astype(jnp.float32),
-        act.astype(jnp.float32),
-        nb_sq.astype(jnp.float32),
-        warm_r9.astype(jnp.float32).reshape(9),
-        jnp.asarray(use_warm, jnp.int32).reshape(1),
-    )
-    return rot, w
+        name="gnc_tls_batch",
+    )(*src.transpose(1, 0, 2), *dst.transpose(1, 0, 2), act, par)
 
 
 def gnc_batch(
@@ -287,31 +233,38 @@ def gnc_batch(
     max_iterations: int,
     gnc_factor: float,
     cost_threshold: float,
+    interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
     """Batch GNC-TLS front door. Returns (rotations (B, 3, 3),
     inliers (B, N) bool) with the reference's weight >= 0.5 rule and the
-    <= 10-inlier fail-safe (registration.cc:1676-1691)."""
-    b = active_b.shape[0]
-    n = active_b.shape[1]
-    nb_sq = jnp.square(noise_bound_b)[None, :]  # (1, B)
+    <= 10-inlier fail-safe (registration.cc:1676-1691).
+
+    `interpret=True` runs the kernel in the Pallas interpreter (tests on
+    hosts without a card)."""
+    b, _, n = src_tims_b.shape
+    npad = padded_width(n)
+    pad = ((0, 0), (0, 0), (0, npad - n))
+    src = jnp.pad(src_tims_b.astype(jnp.float32), pad)
+    dst = jnp.pad(dst_tims_b.astype(jnp.float32), pad)
+    act = jnp.pad(active_b.astype(jnp.float32), ((0, 0), (0, npad - n)))
+    nb_sq = jnp.square(noise_bound_b.astype(jnp.float32))
     nb_sq = jnp.where(nb_sq < 1e-16, 1e-2, nb_sq)
-    nb_sq = jnp.broadcast_to(nb_sq, (n, b))
-    warm9 = warm_rotation.reshape(-1)
-    interpret = jax.default_backend() != "tpu"
-    rot9, w = gnc_batch_pallas(
-        src_tims_b.transpose(1, 2, 0),  # (3, N, B)
-        dst_tims_b.transpose(1, 2, 0),
-        active_b.astype(jnp.float32).T,  # (N, B)
-        nb_sq,
-        warm9,
-        use_warm,
-        max_iterations=max_iterations,
-        gnc_factor=gnc_factor,
-        cost_threshold=cost_threshold,
-        interpret=interpret,
+    par = jnp.concatenate(
+        [
+            nb_sq[:, None],
+            jnp.broadcast_to(jnp.asarray(use_warm, jnp.float32), (b, 1)),
+            jnp.broadcast_to(warm_rotation.astype(jnp.float32).reshape(1, 9), (b, 9)),
+            jnp.zeros((b, _NPAR - 11), jnp.float32),
+        ],
+        axis=1,
     )
-    rotations = rot9.T.reshape(b, 3, 3)
-    inliers = (w.T >= 0.5) & active_b
+    rot16, w = gnc_batch_pallas(
+        src, dst, act, par,
+        max_iterations=max_iterations, gnc_factor=gnc_factor,
+        cost_threshold=cost_threshold, interpret=interpret,
+    )
+    rotations = rot16[:, :9].reshape(b, 3, 3)
+    inliers = (w[:, :n] >= 0.5) & active_b
     count = jnp.sum(inliers, axis=1, keepdims=True)
     inliers = jnp.where(count <= 10, active_b, inliers)
     return rotations, inliers

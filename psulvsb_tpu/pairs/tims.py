@@ -6,7 +6,7 @@ histogram (MaxScale=10000, binsize=20 bins per unit, i.e. bin width 0.05)
 whose peak bin ±1 forms the initial "L reduced set"
 (registration.cc:744-752).
 
-TPU form: pair indices are static numpy constants per padded size; TIMs are
+Batched form: pair indices are static numpy constants per padded size; TIMs are
 one gather + subtract; the histogram is a segment-sum; the peak±1 reduction
 is a vectorized bin-membership mask. Pair validity is carried as a mask so
 padded correspondences never produce TIMs.
@@ -110,9 +110,8 @@ def sort_peak_bin(
     bin_idx: jax.Array, active: jax.Array, num_bins: int
 ) -> tuple[jax.Array, jax.Array]:
     """Histogram argmax without a histogram: sort the bin indices and find
-    the longest run. TPU scatters serialize (~27 ms/1.8M elements on v5e for
-    spread bins) while lax.sort is ~3.5 ms — and the peak search only needs
-    the max-count bin, never the full counts vector.
+    the longest run — the peak search only needs the max-count bin, never
+    the full counts vector.
 
     Returns (peak bin, peak count). Inactive entries sort to a sentinel
     past num_bins and are excluded; with NO active entry the peak is bin 0
@@ -145,8 +144,8 @@ def masked_random_compact(
 
     max_index: static exclusive upper bound on the index values (the
     correspondence count C at the call site). When it fits 15 bits, (i, j)
-    packs into one i32 payload — a 2-operand sort is measurably cheaper
-    than 3-operand on TPU. Larger domains (pad_to_bucket grows unboundedly
+    packs into one i32 payload — a 2-operand sort is cheaper than
+    3-operand. Larger domains (pad_to_bucket grows unboundedly
     past 8192) take the 3-operand form: i*65536+j would wrap negative at
     i >= 32768 and unpack to garbage indices.
 

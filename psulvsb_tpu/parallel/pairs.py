@@ -2,14 +2,14 @@
 
 The reference has no distributed story (SURVEY.md §2.3 — OpenMP threads in
 one process); its dataset sweeps (1623 3DMatch pairs, 555 KITTI pairs,
-teaser_cpp_ply_main.cc:244-795) solve pairs serially. The TPU-native scaling
-axis is the pair batch: a 1-D `jax.sharding.Mesh` over "pairs", each device
+teaser_cpp_ply_main.cc:244-795) solve pairs serially. The scaling axis here is
+the pair batch: a 1-D `jax.sharding.Mesh` over "pairs", each device
 solving its shard with the fused one-dispatch solver, and recall metrics
-reduced with `psum` over ICI.
+reduced with `psum` across the cards.
 
 No intra-solve communication exists or is needed — one pair fits one chip —
 so the sharding is pure data parallelism with a final collective reduction,
-the layout that keeps every byte of ICI traffic to the (tiny) metric
+the layout that keeps every byte of cross-card traffic to the (tiny) metric
 vector.
 """
 
@@ -73,7 +73,7 @@ def register_batch_sharded(
 
     Returns (per-pair solutions (replicated layout preserved as sharded
     outputs), summary dict with psum-reduced totals: solved count and
-    inlier-count sum — the recall aggregation ridden over ICI).
+    inlier-count sum — the recall aggregation as one psum across the cards).
     """
 
     @functools.partial(

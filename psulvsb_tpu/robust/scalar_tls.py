@@ -1,4 +1,4 @@
-"""Scalar robust estimators — the TPU forms of ScalarTLSEstimator.
+"""Scalar robust estimators — the batched forms of ScalarTLSEstimator.
 
 The reference's `ScalarTLSEstimator` (teaser/src/registration.cc:53-320) has
 three behaviors, all re-expressed here as fixed-shape vector programs:
@@ -269,7 +269,7 @@ class ScalarTLSEstimator:
 
     def estimate_tiled(self, x, ranges, s: int = 64):
         """Stock TEASER adaptive voting (registration.cc:206-320). The tile
-        size `s` is a CPU cache-blocking knob with no TPU meaning; accepted
+        size `s` is a CPU cache-blocking knob with no meaning here; accepted
         for signature parity and ignored."""
         del s
         return tls_vote(jnp.asarray(x), jnp.asarray(ranges))

@@ -191,9 +191,8 @@ class TestCertify:
         assert bool(res.is_optimal), f"gap={float(res.best_suboptimality)}"
 
     def test_runs_on_host_cpu_regardless_of_backend(self, rng):
-        """TPUs have no f64 ALUs; certify() pins its f64 program to the host
-        CPU device so it is callable from a TPU-backend session (documented
-        behavior — the reference's Eigen certifier likewise runs host-side,
+        """certify() pins its f64 program to the host CPU device so it is
+        callable from an accelerator session (documented behavior — the reference's Eigen certifier likewise runs host-side,
         certification.cc's double pipeline). Here: result buffers must live
         on a CPU device and x64 must not leak into the ambient config."""
         r = random_rotation(rng)
@@ -231,12 +230,10 @@ class TestCertify:
 class TestDeviceF32Parity:
     """On-device f32 certifier mode (VERDICT r2 #4): certify(device="device")
     runs certify_rotation in f32 on the session's default backend. On the
-    CPU test backend this exercises the identical f32 program TPUs run
-    (certify_rotation pins HIGHEST matmul precision for the whole trace —
-    without it, bf16 einsum/kron passes inflate a certified-optimal case's
-    gap to ~5e2). Real-TPU f32 was additionally measured 2026-08-17: all 5
-    golden cases agree with f64 on is_optimal, gaps within 5e-4 (TPU eigh
-    differs slightly from LAPACK f32; see certify()'s docstring)."""
+    CPU test backend this exercises the same f32 program an accelerator
+    runs (certify_rotation pins HIGHEST matmul precision for the whole
+    trace — without it, bf16 einsum/kron passes inflate a certified-optimal
+    case's gap to ~5e2)."""
 
     def _golden_cases(self):
         import sys

@@ -24,8 +24,8 @@ truth. These tests pin the two facts that make the rescue
    fires in the right direction on real descriptor data.
 
 The end-to-end evidence (recall 1.0 with gror_init + translation_rescue in
-frontend_solver_params) is captured on the TPU by the bench's
-frontend_e2e_* fields.
+frontend_solver_params) is what the bench's frontend_e2e_* fields
+measure.
 """
 
 import os

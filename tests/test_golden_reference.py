@@ -348,7 +348,7 @@ class TestShippedDataFixtures:
 
     def test_fpfh_vs_pcl_golden(self):
         """feature-test.cc:50-100: FPFH-33 on bunny.pcd (normals r=0.03,
-        fpfh r=0.05) vs the PCL-exported bunny_fpfh.csv. The TPU FPFH uses
+        fpfh r=0.05) vs the PCL-exported bunny_fpfh.csv. The batched FPFH uses
         capped-kNN neighborhoods instead of exact radius search, so parity
         is distributional: high per-point cosine similarity of the 33-bin
         histograms, not elementwise equality."""

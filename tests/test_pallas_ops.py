@@ -1,12 +1,13 @@
-"""Pallas pair-grid kernel tests (interpret mode on CPU; the same kernels
-compile natively on TPU — exercised by bench/GROR runs there)."""
+"""GROR's consistency degree (ops/pair_grid.py) and the whole-GNC Pallas
+kernel (ops/pallas_gnc.py, Triton route; interpret mode here, compiled on
+the card by chip_smoke.py and the gpu-marked tests)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from psulvsb_tpu.ops.pallas_pairs import consistency_degree
+from psulvsb_tpu.ops.pair_grid import consistency_degree
 
 
 def ref_degree(src, dst, tau, active=None):
@@ -74,7 +75,7 @@ class TestPallasGnc:
             jnp.asarray(src_b), jnp.asarray(dst_b), jnp.asarray(act),
             jnp.asarray(nb), jnp.eye(3, dtype=jnp.float32),
             jnp.asarray(False), max_iterations=100, gnc_factor=1.4,
-            cost_threshold=0.005,
+            cost_threshold=0.005, interpret=True,
         )
         for i in range(b):
             res_x = gnc_tls_rotation(
@@ -109,7 +110,27 @@ class TestPallasGnc:
             jnp.asarray(act), jnp.full((b,), 0.1, jnp.float32),
             jnp.asarray(r, jnp.float32), jnp.asarray(True),
             max_iterations=100, gnc_factor=1.4, cost_threshold=0.005,
+            interpret=True,
         )
         for i in range(b):
             assert np.abs(np.asarray(rot[i]) - r).max() < 5e-3
             assert not bool(jnp.any(inl[i][n // 2:]))
+
+
+class TestGncPadding:
+    @pytest.mark.parametrize("n, width", [(3, 16), (16, 16), (100, 128),
+                                          (256, 256), (257, 512), (2048, 2048)])
+    def test_padded_width_is_next_power_of_two(self, n, width):
+        from psulvsb_tpu.ops.pallas_gnc import padded_width
+
+        assert padded_width(n) == width
+
+    @pytest.mark.parametrize("n, b", [(100, 2), (257, 3)])
+    def test_padded_columns_never_vote(self, n, b):
+        """N off a power of two: the padded columns are inactive, the
+        kernel matches the XLA loop and the planted inliers
+        (eval/kernel_checks.check_gnc_kernel, interpret mode)."""
+        from psulvsb_tpu.eval.kernel_checks import check_gnc_kernel
+
+        out = check_gnc_kernel(n, b, seed=n, interpret=True)
+        assert out["max_angle_vs_truth_deg"] < 0.5

@@ -1,4 +1,4 @@
-"""Multi-device sharding tests on the virtual 8-device CPU mesh — the TPU
+"""Multi-device sharding tests on the virtual 8-device CPU mesh — the
 equivalent of a fake-backend multi-node test (SURVEY.md §4 implication)."""
 
 import numpy as np
@@ -97,7 +97,7 @@ class TestSharded:
             np.asarray(sols_sh.final_inlier_count),
             np.asarray(sols_lc.final_inlier_count),
         )
-        # Summary reduction (the ICI psum): totals must equal the per-pair
+        # Summary reduction (the cross-device psum): totals must equal the per-pair
         # sums, i.e. the replicated output really is the global reduction.
         assert int(totals["valid_pairs"]) == int(valid_lc.sum()) == 13
         assert int(totals["inlier_sum"]) == int(

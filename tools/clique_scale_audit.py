@@ -11,7 +11,7 @@ known-scale beta window and scale-estimation ratio window — via the shared
 size against the native exact branch-and-bound.
 
 Usage: python tools/clique_scale_audit.py [--out docs/CLIQUE_AUDIT.md]
-Runs on CPU (graph construction is one MXU-free pass at audit scale; the
+Runs on CPU (graph construction is one matmul-free pass at audit scale; the
 native B&B is host code).
 """
 
@@ -29,7 +29,10 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+
+from psulvsb_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

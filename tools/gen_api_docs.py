@@ -1,7 +1,7 @@
 """Generate docs/API.md — a markdown reference of the public surface.
 
-The reference ships a sphinx `doc/` tree; this is the rebuild's equivalent
-(VERDICT r3 missing #5): one generated markdown file covering every public
+The reference ships a sphinx `doc/` tree; this is the rebuild's equivalent:
+one generated markdown file covering every public
 module, with signatures and first-paragraph docstrings pulled from the
 source of truth (the code). Regenerate after API changes:
 
@@ -15,10 +15,6 @@ import inspect
 import sys
 
 sys.path.insert(0, ".")
-
-from psulvsb_tpu.utils.platform import respect_env_platforms
-
-respect_env_platforms()
 
 # (module, [names]) — None means use __all__ or all public callables/classes.
 SECTIONS: list[tuple[str, str, list[str] | None]] = [
@@ -56,10 +52,9 @@ SECTIONS: list[tuple[str, str, list[str] | None]] = [
     ("Core linalg", "psulvsb_tpu.core.linalg", None),
     ("Metrics", "psulvsb_tpu.core.metrics", None),
     ("Pair-parallelism (mesh/shard_map)", "psulvsb_tpu.parallel.pairs", None),
-    ("Pallas kernels: GNC", "psulvsb_tpu.ops.pallas_gnc", None),
-    ("Pallas kernels: histograms / pair counts",
-     "psulvsb_tpu.ops.pallas_hist", None),
-    ("Pallas kernels: pairwise ops", "psulvsb_tpu.ops.pallas_pairs", None),
+    ("Pallas kernel: whole-GNC (Triton)", "psulvsb_tpu.ops.pallas_gnc", None),
+    ("Pair-grid reductions", "psulvsb_tpu.ops.pair_grid", None),
+    ("Kernel and reduction checks", "psulvsb_tpu.eval.kernel_checks", None),
     ("Batched dataset harness", "psulvsb_tpu.eval.batch_harness", None),
     ("Serial dataset harness", "psulvsb_tpu.eval.realdata", None),
     ("Dataset generator", "psulvsb_tpu.eval.make_dataset", None),
@@ -72,6 +67,7 @@ SECTIONS: list[tuple[str, str, list[str] | None]] = [
     ("Padding utilities", "psulvsb_tpu.utils.padding", None),
     ("Timing utilities", "psulvsb_tpu.utils.timing", None),
     ("Precision helpers", "psulvsb_tpu.utils.precision", None),
+    ("Compile cache", "psulvsb_tpu.utils.compile_cache", None),
     ("CLI (MATLAB bridge)", "psulvsb_tpu.cli", None),
 ]
 
